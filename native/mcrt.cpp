@@ -3,7 +3,7 @@
 // A compact OpenMP implementation of the same physics as the JAX wavefront
 // engine (reference algorithm: src/inttau2.f90 + src/kernelsMod.f90 of
 // the-professor510/RSMCRT, re-derived -- not translated).  It serves as
-//  - an independent cross-validation oracle for the TPU engine, and
+//  - an independent cross-validation oracle for the JAX engine, and
 //  - the native CPU baseline for bench comparisons (the reference's own
 //    OpenMP role).
 //
@@ -93,7 +93,7 @@ struct Grid {
   double xmax, ymax, zmax;
 };
 
-// Moss egg (same formula as the TPU engine's sd_egg, itself matching the
+// Moss egg (same formula as the JAX engine's sd_egg, itself matching the
 // reference sdfs.f90:688-718): r1 = base radius, r2 = top radius, h = y
 // of the top circle; 3D lengths (z participates).
 static inline double sd_egg(Vec3 q, double r1, double r2, double h) {

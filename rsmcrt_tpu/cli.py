@@ -20,7 +20,7 @@ import sys
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="rsmcrt_tpu",
-        description="TPU-native signed-distance-field Monte Carlo "
+        description="Differentiable signed-distance-field Monte Carlo "
                     "radiation transfer",
     )
     ap.add_argument("config", nargs="?", default="default.toml",

@@ -1,10 +1,10 @@
 """Physical and numerical constants.
 
-TPU-native re-design of the reference constants module
+Re-design of the reference constants module
 (reference: src/constants.f90:18-30).  Unlike the reference (f64 transport,
-f32 tallies) we default to f32 everywhere -- the natural TPU precision -- and
-scale the boundary-nudge epsilon accordingly.  f64 is available for CPU
-validation runs via ``precision("f64")``.
+f32 tallies) we default to f32 everywhere -- the accelerator's native
+precision -- and scale the boundary-nudge epsilon accordingly.  f64 is
+available for CPU validation runs via ``precision("f64")``.
 """
 
 from __future__ import annotations

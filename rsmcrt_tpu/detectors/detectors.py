@@ -1,6 +1,6 @@
 """Detectors: circle, annulus, fibre (4f system), camera.
 
-TPU-native redesign of the reference detector classes
+Wavefront redesign of the reference detector classes
 (reference: src/detectors/detector_base.f90, src/detectors/detectors.f90).
 Each detector family is a pytree with *stacked* parameters ``[M, ...]`` so
 all detectors of a family test a whole wavefront of path segments in one
@@ -311,11 +311,10 @@ def check_bins(bank: DetectorBank, o, d, seg_len, weight,
     ``{family: (idx [B, M] int32, w [B, M])}`` with ``w`` already masked
     by the hit (and = 1 per hit for the camera, which counts photons,
     detector_base.f90:229).  The chained DDA collects these per round and
-    flushes once per megastep with :func:`flush_bins` -- a per-round
-    scatter-add would cost ~10 ns/element on TPU while these are pure
-    elementwise ops.  With ``want_t`` each family also carries the hit
-    distance ``t [B, M]`` along the segment (for the pMC path-length-at-
-    hit statistics)."""
+    flushes once per megastep with :func:`flush_bins` instead of a
+    scatter-add per round; these are pure elementwise ops.  With
+    ``want_t`` each family also carries the hit distance ``t [B, M]``
+    along the segment (for the pMC path-length-at-hit statistics)."""
     out = {}
     if bank.circle is not None:
         hit, val = bank.circle.check_hit(o, d, seg_len)
@@ -374,8 +373,8 @@ def flush_bins(bank: DetectorBank, acc) -> DetectorBank:
     """Accumulate collected ``(idx, w)`` rounds into the bank bins with a
     dense one-hot reduction.  ``acc: {family: (idx [B', M], w [B', M])}``.
     Detector bin spaces are tiny (M x O(100) bins), so the dense
-    weighted-one-hot sum is bandwidth-bound and far cheaper than a
-    B'-element scatter-add (~10 ns/element fixed on TPU)."""
+    weighted-one-hot sum is a bandwidth-bound reduction with no
+    colliding writes."""
     import dataclasses as _dc
 
     def dense(data2d, idx, w):

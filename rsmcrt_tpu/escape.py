@@ -5,7 +5,7 @@ src/kernelsMod.f90:85-1460.  For each detector, compute a detection-
 efficiency volume: the probability that a photon emitted isotropically from
 a voxel reaches the detector.
 
-TPU-native redesign: the reference runs one FULL simulation per symmetry-
+Wavefront redesign: the reference runs one FULL simulation per symmetry-
 grid voxel (the voxels x photons outer product is its biggest hot loop).
 Here all source voxels are batched into a single wavefront run: lanes are
 assigned to source voxels round-robin by photon index, and detector hits

@@ -1,6 +1,6 @@
 """Cartesian and cylindrical tally grids.
 
-TPU-native version of the reference grid module (reference: src/grid.f90).
+Vectorised version of the reference grid module (reference: src/grid.f90).
 Grids are uniform, so voxel lookup and wall distances are closed-form --
 no face arrays needed (the reference stores xface/yface/zface but its fast
 path is the same floor expression, src/inttau2.f90:605-608).

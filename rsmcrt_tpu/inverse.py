@@ -12,7 +12,7 @@ This module provides both:
   random exploration (same bounds, error definition
   ``-mean |total/N - target|``, :1753-1787), which DOES track and return
   the best parameters;
-- :func:`inverse_gradient_descent` -- the TPU-native replacement: each
+- :func:`inverse_gradient_descent` -- the wavefront replacement: each
   forward run also accumulates per-detected-photon sufficient statistics
   (scatter count, path length, Henyey-Greenstein scores inside the target
   prim), giving closed-form perturbation-MC derivatives of every detector
@@ -267,8 +267,7 @@ def inverse_gradient_descent(input_file, nsteps=50, nphotons=None,
         # detector totals + pMC stats only: fluence deposits are the
         # single largest cost (the scatter-add) and play no role here.
         # chain=True additionally consumes events inside the walk (K per
-        # lane per megastep) -- big TPU win, but the bigger compiled
-        # program is not worth it for small CPU runs
+        # lane per megastep)
         record_fluence=False,
         chain_scatter=chain,
     )

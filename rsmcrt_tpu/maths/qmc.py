@@ -4,7 +4,7 @@ The reference carries a Halton radical-inverse generator
 (reference: src/random_mod.f90:9-42, ``seq``/``next``) seeded per thread
 with bases 2 and 3 (kernelsMod.f90:1853-1854) but never actually uses it
 (the call in the uniform source is commented out, photon.f90:608-609).
-Here it is implemented properly, TPU-style: a *counter-based* radical
+Here it is implemented properly, wavefront-style: a *counter-based* radical
 inverse keyed by the global photon index (so it composes with the
 wavefront respawn scheme and with photon sharding across devices), plus a
 Cranley-Patterson rotation per dimension so independent replicates stay

@@ -14,6 +14,7 @@ the reference API.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -29,9 +30,9 @@ def apply_transform(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """``[p, 1] @ m`` restricted to the first three output components.
 
     ``p`` may be batched ``[..., 3]``; ``m`` is ``[4, 4]``.  Expanded
-    elementwise rather than ``p @ m``: XLA lowers tiny f32 matmuls to the
-    MXU at bf16 precision by default on TPU, a ~3e-3 relative geometry
-    error on every SDF evaluation; the expansion stays on the VPU in
+    elementwise rather than ``p @ m``: an f32 matmul at default precision
+    may run on reduced-precision tensor cores (TF32 keeps ~3 decimal
+    digits), an error on every SDF evaluation; the expansion stays in
     full f32.
     """
     return (
@@ -43,8 +44,8 @@ def apply_transform(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
 
 
 def apply_rotation(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    """Rotate a direction (no translation part; same VPU expansion as
-    :func:`apply_transform`)."""
+    """Rotate a direction (no translation part; same elementwise
+    expansion as :func:`apply_transform`)."""
     return (
         v[..., 0:1] * m[0, :3]
         + v[..., 1:2] * m[1, :3]
@@ -149,10 +150,16 @@ def rotation_align(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     a = jnp.asarray(a)
     b = jnp.asarray(b)
     v = jnp.cross(a, b)
-    c = jnp.dot(a, b)
+    c = jnp.sum(a * b)
     k = 1.0 / (1.0 + c)
     vx = skew_symm(v)
-    return jnp.eye(4, dtype=a.dtype) + vx + (vx @ vx) * k
+    return jnp.eye(4, dtype=a.dtype) + vx + matmul(vx, vx) * k
+
+
+def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """Matrix product at full f32 precision (default precision may
+    round f32 operands to TF32 on tensor cores)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def invert(m: jnp.ndarray) -> jnp.ndarray:

@@ -1,31 +1,65 @@
 """ctypes bindings for the native CPU MCRT engine (native/mcrt.cpp).
 
 The native engine is an independent scalar implementation of the same
-physics used for cross-validation of the TPU wavefront engine and as the
+physics used for cross-validation of the JAX wavefront engine and as the
 CPU baseline in benchmarks (the role OpenMP plays in the reference).
+The shared library is built from the source at first use.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import shutil
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
+_SRC_PATH = _NATIVE_DIR / "mcrt.cpp"
 _LIB_PATH = _NATIVE_DIR / "libmcrt.so"
+CXXFLAGS = ["-O3", "-march=native", "-fopenmp", "-fPIC", "-std=c++17",
+            "-shared"]
 
 _lib = None
+
+
+def build(lib_path: Path = _LIB_PATH) -> Path:
+    """Compile ``native/mcrt.cpp`` into ``lib_path``.  The library is
+    written under a per-process temporary name and renamed into place,
+    so concurrent builders (parallel test workers) never load a partial
+    file."""
+    tmp = lib_path.with_name(f"{lib_path.name}.tmp{os.getpid()}")
+    errors = []
+    # $CXX first, then the system compilers (a toolchain named by $CXX
+    # may lack OpenMP)
+    for cxx in dict.fromkeys(filter(None, (os.environ.get("CXX"),
+                                           shutil.which("g++"),
+                                           shutil.which("c++")))):
+        try:
+            run = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp),
+                                  str(_SRC_PATH)],
+                                 capture_output=True, text=True)
+        except OSError as e:
+            errors.append(f"{cxx}: {e}")
+            continue
+        if run.returncode == 0:
+            os.replace(tmp, lib_path)
+            return lib_path
+        tmp.unlink(missing_ok=True)
+        errors.append(f"{cxx}: {run.stderr.strip()[-2000:]}")
+    raise RuntimeError("cannot build the native engine:\n"
+                       + "\n".join(errors or ["no C++ compiler found"]))
 
 
 def _ensure_built():
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists():
-        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                       capture_output=True)
+    if (not _LIB_PATH.exists()
+            or _LIB_PATH.stat().st_mtime < _SRC_PATH.stat().st_mtime):
+        build()
     lib = ctypes.CDLL(str(_LIB_PATH))
     lib.mcrt_run.restype = ctypes.c_double
     lib.mcrt_run.argtypes = [

@@ -1,13 +1,13 @@
 """PBRT-style piecewise distribution sampling.
 
-TPU-native version of the reference's piecewise module
+Vectorised version of the reference's piecewise module
 (reference: src/opticalProps/piecewise.f90).  Three samplers:
 
 - ``Constant``  -- single value (reference: :44-50, :93-107)
 - ``Piecewise1D`` -- trapezoid-rule CDF, inverse-CDF sampling with linear
   interpolation, plus y-at-x lookup (reference: :53-61, :109-168)
 - ``Piecewise2D`` -- image-based 2D sampling.  The reference builds its CDF
-  in Morton (z-order) order purely as a CPU-cache trick (:193-244); on TPU a
+  in Morton (z-order) order purely as a CPU-cache trick (:193-244); here a
   plain row-major CDF over the flattened image is the natural layout and is
   statistically identical, so we use that.
 

@@ -1,6 +1,6 @@
 """Optical properties.
 
-TPU-native redesign of the reference's polymorphic optical property classes
+Redesign of the reference's polymorphic optical property classes
 (reference: src/opticalProps/opticalProperties.f90).  An ``OptProps`` is a
 flat differentiable pytree of the four *independent* quantities
 (mus, mua, hgg, n); the derived kappa / albedo / g2 are computed lazily so

@@ -4,16 +4,15 @@ Reference: the MPI rank reduction (src/kernelsMod.f90:2351-2357,
 fpm.toml:23 ``mpi_f08``) -- every rank simulates its share of the photon
 budget and the tally grids are SUM-reduced to rank 0 at the end.
 
-TPU-native equivalent: every host process calls :func:`initialize`
-(``jax.distributed``), the device mesh spans ALL processes' chips
-(`jax.devices()` is global after init), photons shard over that mesh
-(pure data parallelism), per-device RNG keys fold the *global* device
-index (fixing the reference's un-offset MPI rank seeds,
-kernelsMod.f90:1846-1851), and tallies reduce with one jitted sum whose
-output is replicated on every process.  Collectives ride ICI within a
-pod slice; DCN carries only the final reduction and the tiny per-chunk
-status scalars -- the same communication shape as the reference's
-end-of-run ``mpi_reduce``.
+Here every host process calls :func:`initialize` (``jax.distributed``),
+the device mesh spans ALL processes' devices (`jax.devices()` is global
+after init), photons shard over that mesh (pure data parallelism),
+per-device RNG keys fold the *global* device index (fixing the
+reference's un-offset MPI rank seeds, kernelsMod.f90:1846-1851), and
+tallies reduce with one jitted sum whose output is replicated on every
+process.  Between processes only the final reduction and the tiny
+per-chunk status scalars travel -- the same communication shape as the
+reference's end-of-run ``mpi_reduce``.
 
 Tested with 2 CPU processes (local distributed backend) in
 tests/test_distributed.py; the single-process path is identical to
@@ -38,15 +37,16 @@ from .mesh import _check_sharded_cfg, _chunk_sharded
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None, **kw):
     """``jax.distributed.initialize`` passthrough.  With no arguments jax
-    auto-detects the cluster (TPU pod metadata, SLURM, Open MPI); pass
-    explicit values for manual process launch."""
+    auto-detects the cluster (SLURM, Open MPI); pass explicit values
+    (``coordinator_address="localhost:<port>"``, ``num_processes``,
+    ``process_id``) for manual process launch."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id, **kw)
 
 
 def global_mesh(axis: str = "dp") -> Mesh:
-    """1D mesh over every chip of every connected process."""
+    """1D mesh over every device of every connected process."""
     return Mesh(np.array(jax.devices()), (axis,))
 
 

@@ -2,11 +2,11 @@
 
 The reference's only parallel axes are OpenMP threads over photons plus an
 MPI SUM-reduction of tally grids at the end
-(reference: src/kernelsMod.f90:1833-1892, :2351-2357).  The TPU-native
-equivalent: a 1D device mesh over which the photon budget is sharded
-(pure DP), each device running the wavefront engine with an independent
-counter-based RNG key, and the tally grids / detector bins reduced with
-``psum`` over ICI inside ``shard_map`` -- replacing ``mpi_reduce``.
+(reference: src/kernelsMod.f90:1833-1892, :2351-2357).  Here: a 1D
+device mesh over which the photon budget is sharded (pure DP), each
+device running the wavefront engine with an independent counter-based RNG
+key, and the tally grids / detector bins reduced with ``psum`` inside
+``shard_map`` (NCCL between GPUs) -- replacing ``mpi_reduce``.
 
 Geometry, optical properties and the grid are replicated (they are small);
 only the photon work divides.  The reference's per-rank RNG was a latent
@@ -24,12 +24,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:  # moved out of experimental in newer jax
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from ..transport.engine import (TransportConfig, _init_lanes, SimCarry,
                                 _run_steps_impl, init_carry,
@@ -174,8 +170,8 @@ def simulate_sharded_chunked(scene, source, grid, key, cfg: TransportConfig,
     """Chunked multi-device simulation: per-device carries ride a leading
     mesh axis (sharded with ``P('dp')``), a vmapped bounded-step chunk runs
     on every device, and the host loops until all devices finish -- the
-    multi-chip version of the chunked single-device driver (long single
-    executions trip device watchdogs).  Tallies/bins are summed across
+    multi-device version of the chunked single-device driver (bounded
+    device executions between host checks).  Tallies/bins are summed across
     devices at the end (the reference's mpi_reduce moment,
     kernelsMod.f90:2351-2357).
 

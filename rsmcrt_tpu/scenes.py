@@ -1,6 +1,6 @@
 """Prebuilt experiment scenes.
 
-TPU-native port of the reference scene library
+Port of the reference scene library
 (reference: src/setupGeometry.f90) plus the registry that dispatches on the
 config's ``geom_name`` (reference: src/setup.f90:33-60).
 

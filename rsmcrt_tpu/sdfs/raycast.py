@@ -1,6 +1,6 @@
 """Analytic ray-surface intersection for the standard primitives.
 
-TPU-first replacement for sphere-trace *creep*: the reference finds the next
+Closed-form replacement for sphere-trace *creep*: the reference finds the next
 surface by repeated conservative SDF steps (reference: src/inttau2.f90:155-192)
 which converges linearly with factor ``1 - sin(theta)`` -- grazing rays need
 hundreds of iterations, and rays that pass near a surface without crossing it
@@ -588,15 +588,8 @@ def surface_normal(scene, pos, idx):
             single = jax.tree_util.tree_map(lambda a: a[0], params)
             n = jax.vmap(jax.grad(f), in_axes=(0, None))(pos, single)
         else:
-            # dense one-hot take of the member's parameter rows: a
-            # per-lane table gather serializes on TPU (~10 ns/row) and
-            # breaks fusion -- with many prims these dominated the
-            # chain round (7.7k gathers per 50-prim megastep)
-            from ..maths.onehot import onehot_take
-
             member = jnp.clip(idx - offset, 0, size - 1)
-            prm = jax.tree_util.tree_map(
-                lambda a: onehot_take(a, member), params)
+            prm = jax.tree_util.tree_map(lambda a: a[member], params)
             n = jax.vmap(jax.grad(f))(pos, prm)
         # +1e-30: finite vjp at degenerate (zero-gradient) points
         norm = jnp.sqrt(jnp.sum(n * n, axis=-1, keepdims=True) + 1e-30)

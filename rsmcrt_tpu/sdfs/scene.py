@@ -1,6 +1,6 @@
 """Scene representation and batched SDF evaluation.
 
-TPU-native redesign of the reference's polymorphic SDF containers
+Vectorised redesign of the reference's polymorphic SDF containers
 (reference: src/sdfs/sdf_base.f90).  Instead of an array of OO objects with
 virtual ``evaluate`` methods, a scene here is:
 
@@ -109,6 +109,22 @@ class PrimSpec:
             tuple(sorted(self.params.keys())),
             tuple(c.signature() for c in self.children),
         )
+
+    # Specs are static parts of a Scene, so they key jit caches: compare
+    # them by what a compiled program reads from them (the structure, and
+    # whether the closed-form raycast applies), so that rebuilding the
+    # same scene reuses its compiled programs.
+    def _static_key(self):
+        from .raycast import _is_analytic_spec
+
+        return self.signature(), _is_analytic_spec(self)
+
+    def __eq__(self, other):
+        return (isinstance(other, PrimSpec)
+                and self._static_key() == other._static_key())
+
+    def __hash__(self):
+        return hash(self._static_key())
 
 
 def _as_arr(v, dtype):
@@ -516,9 +532,8 @@ def eval_scene(scene: Scene, pos: jnp.ndarray) -> jnp.ndarray:
             )(params)
         cols.append(d)
     ds = jnp.concatenate(cols, axis=-1)
-    # static permutation as unrolled slices: an index-array gather is a
-    # serialized kernel + fusion boundary on TPU even with constant
-    # indices, and eval_scene runs once per chain round
+    # static permutation as unrolled slices (they fuse with the SDF
+    # evaluation; eval_scene runs once per chain round)
     if tuple(scene.perm) == tuple(range(scene.n_prims)):
         return ds
     return jnp.concatenate(
@@ -551,8 +566,9 @@ def calc_normals(scene: Scene, pos: jnp.ndarray, h: float) -> jnp.ndarray:
     # [..., 4, 3] evaluation points
     pts = pos[..., None, :] + offs * h
     ds = eval_scene(scene, pts)  # [..., 4, N]
-    # explicit sum instead of einsum: XLA lowers tiny f32 einsums to the
-    # MXU at bf16 precision on TPU, which corrupts Fresnel normals
+    # explicit sum instead of einsum: an f32 contraction at default
+    # precision may run in TF32 on tensor cores, and differences of
+    # rounded taps at offset h corrupt Fresnel normals
     n = sum(
         ds[..., k, :, None] * offs[k] for k in range(4)
     )  # [..., N, 3]

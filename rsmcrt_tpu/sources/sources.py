@@ -1,6 +1,6 @@
 """Photon source sampling.
 
-TPU-native redesign of the reference launch routines
+Vectorised redesign of the reference launch routines
 (reference: src/photon.f90:159-1043).  A :class:`Source` is a pytree of
 parameters with a static ``kind``; ``sample`` consumes a block of uniforms
 ``u [B, 8]`` and emits a whole wavefront of photons at once.  Fixed
@@ -157,7 +157,7 @@ def _focus_annulus_frame(position, rotation, dtype):
     # trace-safe (params may be jit tracers): select between the Rodrigues
     # alignment and the b = -a mirror case, where rotation_align is
     # singular (1/(1+c) with c = a.b = -1)
-    c = jnp.dot(a, b)
+    c = jnp.sum(a * b)
     mirrored = c < -1.0 + 1e-6
     b_safe = jnp.where(mirrored, -b, b)
     t_rot = T.rotation_align(a, b_safe)
@@ -165,7 +165,7 @@ def _focus_annulus_frame(position, rotation, dtype):
     t_dir = jnp.where(mirrored, t_mirror, t_rot)
     # reference resets t(3,3)=1 for the *position* transform (:469-471)
     t = jnp.where(mirrored, t_mirror.at[2, 2].set(1.0), t_rot)
-    t_pos = t @ T.invert(T.translate(start))
+    t_pos = T.matmul(t, T.invert(T.translate(start)))
     return t_pos, t_dir
 
 
@@ -201,7 +201,7 @@ def sample(source: Source, grid: CartGrid, u: jnp.ndarray, sid=None):
 
     if kind == "escape_points":
         # batched isotropic point sources at precomputed voxel centres --
-        # the TPU-native version of the reference escape-function per-voxel
+        # the batched version of the reference escape-function per-voxel
         # loop (kernelsMod.f90:167-184, :599-607)
         phi = u[:, 0] * TWOPI
         cost = 2.0 * u[:, 1] - 1.0
@@ -262,7 +262,8 @@ def sample(source: Source, grid: CartGrid, u: jnp.ndarray, sid=None):
                 [jnp.zeros_like(r), r * jnp.cos(theta), r * jnp.sin(theta)],
                 axis=-1,
             )
-        t = T.rotation_align(a, b) @ T.invert(T.translate(p["position"]))
+        t = T.matmul(T.rotation_align(a, b),
+                     T.invert(T.translate(p["position"])))
         pos = -T.apply_transform(t, local)
         pos = _edge_nudge(pos, grid, shift)
         direction = jnp.broadcast_to(b, (B, 3))

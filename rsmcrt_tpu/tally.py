@@ -1,6 +1,6 @@
 """Tally arrays.
 
-TPU-native version of the reference's global tally state
+Functional version of the reference's global tally state
 (reference: src/iarray.f90).  Instead of mutable globals with
 ``!$omp atomic`` updates, tallies are a pytree threaded through the jitted
 transport loop and updated with scatter-adds; the MPI ``*GLOBAL`` reduction

@@ -1,6 +1,6 @@
 """Wavefront photon transport engine.
 
-This is the TPU-native replacement for the reference's scalar hot loop
+This is the accelerator replacement for the reference's scalar hot loop
 (reference: src/inttau2.f90 ``tauint2`` + src/kernelsMod.f90 ``run_MCRT`` /
 ``noBiasPropagation`` / ``survivalBiasPropagation``).
 
@@ -8,7 +8,7 @@ Design
 ------
 The reference advances ONE photon at a time through nested, data-dependent
 loops (sphere-trace, voxel DDA, boundary search), parallelised with OpenMP
-threads and ``!$omp atomic`` tallies.  On TPU we invert the structure into a
+threads and ``!$omp atomic`` tallies.  Here we invert the structure into a
 *wavefront megakernel*: a large batch of photons (lanes) advances in
 lockstep inside a single ``lax.while_loop``.  Each iteration has two
 phases, mirroring the reference's split between sphere-trace marching and
@@ -58,7 +58,6 @@ from ..sources.sources import (
 )
 from ..tally import Tallies, zero_tallies
 from .fresnel import fresnel_coeff, reflect, refract
-from ..maths.onehot import onehot_take, onehot_take_col
 from .scatter import hg_logpdf_dg, sample_hg_cost, scatter_direction
 
 # uniform columns per megastep: a source-kind-dependent block followed by
@@ -98,8 +97,9 @@ class TransportConfig:
     roulette_bounces: int = 0
     roulette_chance: float = 0.1
     max_steps: int = 2_000_000
-    # voxel-wall intervals deposited per megastep before re-running
-    # segment analysis (8 measured best on v5e with the closed-form DDA)
+    # voxel-wall intervals (chain rounds in the chained walk) per
+    # megastep before re-running segment analysis; the product value is
+    # per device (kernels.DEVICE_TABLE)
     dda_substeps: int = 8
     # in-line chaining inside the DDA walk: a lane whose segment ends in
     # an interaction (scatter / absorb / survival-bias deposit) or at an
@@ -148,12 +148,12 @@ class TransportConfig:
     max_scatter_order: int = 0
     # escape-function mode: (n_source_voxels, n_detectors); photons are
     # attributed round-robin to source voxels and detector hits accumulate
-    # into tallies.escape_tot (batched TPU version of the reference's
+    # into tallies.escape_tot (batched version of the reference's
     # per-voxel simulation loop, kernelsMod.f90:533-642).  Orthogonal to
     # the pMC inverse statistics, which have their own tally field.
     escape_shape: tuple = (0, 0)
     # photon path history: ring length per lane (0 = off).  Paths of
-    # detected photons are flushed to tallies.tracks, the TPU version of
+    # detected photons are flushed to tallies.tracks, the wavefront version of
     # the reference's history stack (src/historyStack.f90; the reference
     # forbids it under OpenMP, parse_detectors.f90:177-182 -- here it is
     # wavefront-safe but single-device)
@@ -274,45 +274,64 @@ def _ring_write(history, slot, entry, H):
         onehot[..., None] * entry[:, None, :]
 
 
-def _take_col(a: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """a [B, N], idx [B] -> a[b, idx[b]] with idx clipped.
+def _add_moments(mom_pos, mom_pos2, order, pos):
+    """Add ``pos`` and ``pos**2`` of lanes at scatter order 1..4 into the
+    [4, 3] moment tallies (order 0 or > 4 adds nothing).  Elementwise
+    products and sums: an f32 matmul would run at reduced precision on
+    tensor cores."""
+    oh = jax.nn.one_hot(order - 1, 4, dtype=pos.dtype)[:, :, None]
+    p = pos[:, None, :]
+    return (mom_pos + jnp.sum(oh * p, axis=0),
+            mom_pos2 + jnp.sum(oh * (p * p), axis=0))
 
-    Small N expands into a select chain (fuses; a take_along_axis is a
-    kernel boundary on TPU)."""
+
+def _vary_like(tree, like):
+    """Mark every leaf of ``tree`` varying over the manual mesh axes that
+    ``like`` varies over (under ``shard_map``, freshly built loop carries
+    are replicated while the loop body makes them per-device; outside a
+    mesh this is the identity)."""
+    vma = set(jax.typeof(like).vma)
+
+    def cast(x):
+        missing = tuple(sorted(vma - set(jax.typeof(x).vma)))
+        return jax.lax.pcast(x, missing, to="varying") if missing else x
+
+    return jax.tree_util.tree_map(cast, tree) if vma else tree
+
+
+# Per-lane lookups in tables of at most this many entries are select
+# chains, in larger ones gathers; both are exact.  On an H100 the chains
+# ran ~4% faster end to end than gathers on the 3-row sphere scene, and
+# gathers ~6% faster than dense one-hot contractions on the 52-row
+# 50-sphere scene (PERF.md, PR 1); sizes in between are unmeasured.
+_SELECT_MAX = 8
+
+
+def _take_col(a: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """a [..., N], idx [...] -> a[..., idx] per lane, idx clipped."""
     N = a.shape[-1]
     idx = jnp.clip(idx, 0, N - 1)
-    if N <= 8:
-        out = a[:, 0]
+    if N <= _SELECT_MAX:
+        out = a[..., 0]
         for i in range(1, N):
-            out = jnp.where(idx == i, a[:, i], out)
+            out = jnp.where(idx == i, a[..., i], out)
         return out
-    # large N: dense one-hot sum -- a take_along_axis is a serialized
-    # row-gather kernel (~10 ns/row) and a fusion boundary on TPU
-    return onehot_take_col(a, idx)
+    return jnp.take_along_axis(a, idx[..., None], axis=-1)[..., 0]
 
 
 def _opt_lookup(tables, arr, layer, wavelength):
     """Per-lane optical property lookup: 1D ``arr[N+1]`` for mono scenes,
     2D ``arr[W, N+1]`` binned by photon wavelength for spectral scenes
     (per-photon spectral transport; the reference never couples its
-    spectral type into transport, piecewise.f90:13 note).
-
-    Small mono tables expand into a select chain instead of a gather:
-    gathers break XLA fusion inside the unrolled chain rounds (each one
-    is a kernel boundary + HBM round trip of the [B] operands), while a
-    handful of ``where``s fuse into the surrounding elementwise work."""
+    spectral type into transport, piecewise.f90:13 note)."""
     if tables.wavelengths is None:
-        n_rows = arr.shape[0]
-        if n_rows <= 8:
-            out = jnp.broadcast_to(arr[0], layer.shape + arr.shape[1:])
-            for i in range(1, n_rows):
-                sel = layer == i
-                if arr.ndim > 1:
-                    sel = sel.reshape(sel.shape + (1,) * (arr.ndim - 1))
-                out = jnp.where(sel, arr[i], out)
-            return out
-        # many-prim scenes: dense one-hot matmul instead of a row gather
-        return onehot_take(arr, layer)
+        if arr.shape[0] > _SELECT_MAX:
+            return arr[layer]
+        out = jnp.broadcast_to(arr[0], layer.shape + arr.shape[1:])
+        for i in range(1, arr.shape[0]):
+            sel = (layer == i).reshape(layer.shape + (1,) * (arr.ndim - 1))
+            out = jnp.where(sel, arr[i], out)
+        return out
     # spectral: LINEAR interpolation between the two bracketing
     # wavelength rows (round 4, VERDICT r3 weak #7: floor-binning left
     # an O(dlambda) quantisation error unbounded; interpolation makes it
@@ -544,14 +563,6 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
     cand_k = jnp.zeros((B,), jnp.int32)
     steps_l = steps
     tau_l = tau
-    flats, vals = [], []
-    # survival-bias mode deposits w*(1-albedo) at EVERY interaction:
-    # per-round (cell, weight) pairs, flushed with one scatter-add
-    ab_flats, ab_vals = [], []
-    # per-round detector (bin, weight) candidates, flushed densely after
-    # the loop (reference hit protocol: one test per straight segment,
-    # inttau2.f90:195-200; analysis-phase segments were already tested)
-    dect_acc = {} if bank is not None else None
     # current-layer optical properties are consumed together every round:
     # pack them so the per-round lookup is ONE gather of [B, 4] instead
     # of four separate tiny-table gathers
@@ -586,7 +597,20 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
     else:
         hit_acc = None
 
-    for r in range(K):
+    # the K rounds are a rolled loop: an unrolled chain of K round
+    # bodies compiles in time superlinear in K (over 3 minutes at K=16 on
+    # an H100), a scanned one in the time of one body, and unrolling 4
+    # rounds per iteration ran 7% slower (PERF.md, PR 1).  Per-round
+    # deposits and detector candidates leave the loop as stacked [K, ...]
+    # outputs.
+    def chain_round(state, u_r):
+        (t_next, dt_ax, rem, s_prev, cell, walking, p0, dirc, seg_int, srf_f,
+         cont_f, prim_l, layer_l, w_l, bounces_l, wavelength_l, phase_l, died,
+         absorb_ws, absorb_fls, n_ab, n_scat, n_inter, n_resp, cand_k, steps_l,
+         tau_l, mom_pos, mom_pos2, pmc_cnt_l, pmc_len_l, pmc_hg_l, pmc_fn_l,
+         pmc_bn_l, pmc_dd_l, pmc_stats_add, hit_acc) = state
+        absorb_ws, absorb_fls = list(absorb_ws), list(absorb_fls)
+        out = {}
         c = jnp.min(t_next, axis=-1)  # [B] next wall along the segment
         ends = rem <= c
         hi = jnp.where(ends, rem, c)
@@ -626,7 +650,6 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
             jnp.logical_and(jnp.logical_not(srf_f),
                             jnp.logical_not(cont_f)),
         )
-        u_r = uc[:, r, :]
         p_end = p0 + rem[:, None] * dirc
         w_dep = w_l  # weight before any roulette reweight this round
 
@@ -658,8 +681,8 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
             ch = jnp.asarray(CHANCE, dtype)
             w_abs = jnp.where(inter, w_l * (1.0 - albedo_l), 0.0)
             w_l = w_l - w_abs
-            ab_flats.append(flat)
-            ab_vals.append(jnp.where(valid, w_abs, 0.0))
+            out["ab_flat"] = flat
+            out["ab_val"] = jnp.where(valid, w_abs, 0.0)
             roul = jnp.logical_and(inter, w_l < thr)
             surv = jnp.logical_and(roul, u_r[:, 0] < ch)
             w_l = jnp.where(surv, w_l / ch, w_l)
@@ -736,7 +759,8 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
             )
             pmc_fn_l = pmc_fn_l + jnp.where(fres_ev, s_ch, 0.0)
 
-            hit_layer = onehot_take(layer_of_concat, prim_l)
+            hit_layer = layer_of_concat[
+                jnp.clip(prim_l, 0, scene.n_prims - 1)]
             inv_srf = jnp.logical_and(srf, hit_layer == inv)
             costh = jnp.maximum(jnp.abs(jnp.sum(dirc * nvec, axis=-1)),
                                 1e-3)
@@ -760,8 +784,8 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
         if cfg.record_fluence:
             dep = jnp.where(jnp.logical_and(walking, valid),
                             dep_len * w_dep, 0.0)
-            flats.append(flat)
-            vals.append(dep)
+            out["flat"] = flat
+            out["dep"] = dep
         phase_l = phase_l + jnp.where(walking, dep_len, 0.0)
 
         # --- continuation: scatter + surviving surface lanes ------------
@@ -892,10 +916,8 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
 
         if cfg.record_moments:
             order = jnp.where(do_sc, steps2, 0)  # 1..4 of interest
-            onehot = jax.nn.one_hot(order - 1, 4, dtype=dtype)
-            mom_pos = mom_pos + jnp.einsum("bk,bc->kc", onehot, p_end)
-            mom_pos2 = mom_pos2 + jnp.einsum("bk,bc->kc", onehot,
-                                             p_end**2)
+            mom_pos, mom_pos2 = _add_moments(mom_pos, mom_pos2, order,
+                                             p_end)
 
         n_scat = n_scat + jnp.sum(do_sc, dtype=jnp.int32)
         n_inter = n_inter + jnp.sum(inter, dtype=jnp.int32)
@@ -933,10 +955,10 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
                 jnp.where(ev, w_l, 0.0),
                 want_t=cfg.inverse_prim > 0,
             )
-            for fam, row in fams.items():
-                acc = dect_acc.setdefault(fam, ([], []))
-                acc[0].append(row[0])
-                acc[1].append(row[1])
+            # candidates are flushed densely after the loop (reference
+            # hit protocol: one test per straight segment,
+            # inttau2.f90:195-200)
+            out["dect"] = {fam: row[:2] for fam, row in fams.items()}
             if cfg.escape_shape[0] > 0:
                 hit_acc = hit_acc + ordered_cols(bank, fams, 1)
             if cfg.inverse_prim > 0:
@@ -1030,28 +1052,52 @@ def _chained_dda(scene, grid, cfg: TransportConfig, key, pos, direction,
             t_next = jnp.minimum(t_next + jnp.where(am, dt_ax, 0.0), big)
             s_prev = jnp.where(adv, c, s_prev)
 
+        state = (
+            t_next, dt_ax, rem, s_prev, cell, walking, p0, dirc, seg_int,
+            srf_f, cont_f, prim_l, layer_l, w_l, bounces_l, wavelength_l,
+            phase_l, died, absorb_ws, absorb_fls, n_ab, n_scat, n_inter,
+            n_resp, cand_k, steps_l, tau_l, mom_pos, mom_pos2, pmc_cnt_l,
+            pmc_len_l, pmc_hg_l, pmc_fn_l, pmc_bn_l, pmc_dd_l, pmc_stats_add,
+            hit_acc,
+        )
+        return state, out
+
+    state = (
+        t_next, dt_ax, rem, s_prev, cell, walking, p0, dirc, seg_int, srf_f,
+        cont_f, prim_l, layer_l, w_l, bounces_l, wavelength_l, phase_l, died,
+        absorb_ws, absorb_fls, n_ab, n_scat, n_inter, n_resp, cand_k, steps_l,
+        tau_l, mom_pos, mom_pos2, pmc_cnt_l, pmc_len_l, pmc_hg_l, pmc_fn_l,
+        pmc_bn_l, pmc_dd_l, pmc_stats_add, hit_acc,
+    )
+    state, outs = jax.lax.scan(chain_round, _vary_like(state, pos),
+                               jnp.swapaxes(uc, 0, 1))
+    (t_next, dt_ax, rem, s_prev, cell, walking, p0, dirc, seg_int, srf_f,
+     cont_f, prim_l, layer_l, w_l, bounces_l, wavelength_l, phase_l, died,
+     absorb_ws, absorb_fls, n_ab, n_scat, n_inter, n_resp, cand_k, steps_l,
+     tau_l, mom_pos, mom_pos2, pmc_cnt_l, pmc_len_l, pmc_hg_l, pmc_fn_l,
+     pmc_bn_l, pmc_dd_l, pmc_stats_add, hit_acc) = state
+
     pos_new = p0 + s_prev[:, None] * dirc
     seg_rem_new = jnp.maximum(rem - s_prev, 0.0)
     alive_new = jnp.logical_and(alive, jnp.logical_not(died))
     if cfg.record_fluence:
-        flat_k = jnp.stack(flats, axis=-1)  # [B, K]
-        deps_k = jnp.stack(vals, axis=-1)
+        flat_k = outs["flat"].T  # [B, K]
+        deps_k = outs["dep"].T
     else:
         flat_k = deps_k = None
     if cfg.survival_bias:
         # fold the per-round absorption deposits into the same flush
-        absorb_w = jnp.stack(ab_vals, axis=-1)  # [B, K]
-        absorb_flat = jnp.stack(ab_flats, axis=-1)
+        absorb_w = outs["ab_val"].T  # [B, K]
+        absorb_flat = outs["ab_flat"].T
     else:
         absorb_w = jnp.stack(absorb_ws, axis=-1)  # [B, n_slots]
         absorb_flat = jnp.stack(absorb_fls, axis=-1)
     bank_out = bank
-    if bank is not None and dect_acc:
-        acc = {
-            fam: (jnp.concatenate(ix, axis=0),
-                  jnp.concatenate(w, axis=0))
-            for fam, (ix, w) in dect_acc.items()
-        }
+    if outs.get("dect"):
+        # [K, B, M] per-round candidates -> [K*B, M], round-major
+        acc = {fam: (ix.reshape(-1, ix.shape[-1]),
+                     w.reshape(-1, w.shape[-1]))
+               for fam, (ix, w) in outs["dect"].items()}
         bank_out = flush_bins(bank, acc)
     return (pos_new, dirc, w_l, tau_l, seg_rem_new, seg_int, srf_f,
             cont_f, prim_l, layer_l, alive_new, steps_l, bounces_l,
@@ -1254,14 +1300,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     # tetrahedron FD normal of the crossed prim only: gather its 4 tap
     # values, then combine (cheaper than forming normals for all N prims)
     nidx = jnp.clip(bprim - 1, 0, scene.n_prims - 1)
-    if scene.n_prims <= 8:  # select chain fuses (gathers do not)
-        taps = ev5[:, 1:5, 0]
-        for i in range(1, scene.n_prims):
-            taps = jnp.where((nidx == i)[:, None], ev5[:, 1:5, i], taps)
-    else:
-        # dense one-hot contraction (gathers serialize on TPU)
-        oh5 = (nidx[:, None] == jnp.arange(scene.n_prims)).astype(dtype)
-        taps = jnp.einsum("bkn,bn->bk", ev5[:, 1:5, :], oh5)  # [B, 4]
+    taps = _take_col(ev5[:, 1:5, :], nidx[:, None])  # [B, 4]
     nvec = sum(taps[:, k:k + 1] * tet[k] for k in range(4))  # [B, 3]
     # +1e-30: finite reverse-mode gradient at the zero vector (a plain
     # norm's vjp is 0*inf = NaN there, poisoning jax.grad of the step)
@@ -1877,9 +1916,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         # (kernelsMod.f90:2149-2161); chained scatters were recorded
         # in-loop, this covers the plain path + chained leftovers
         order = jnp.where(do_scatter, steps, 0)  # 1..4 of interest
-        onehot = jax.nn.one_hot(order - 1, 4, dtype=dtype)  # -1 -> all zero
-        mom_pos = mom_pos + jnp.einsum("bk,bc->kc", onehot, pos)
-        mom_pos2 = mom_pos2 + jnp.einsum("bk,bc->kc", onehot, pos**2)
+        mom_pos, mom_pos2 = _add_moments(mom_pos, mom_pos2, order, pos)
 
     died = died_interact
     if cfg.max_scatter_order > 0:
@@ -1972,8 +2009,8 @@ def _run_steps_impl(scene, source, grid, key, carry,
          donate_argnames=("carry",))
 def _run_steps(scene, source, grid, key, carry, cfg: TransportConfig,
                n_steps: int, nphotons=None):
-    """Jitted bounded-step chunk; the host loops over chunks to stay
-    under device-execution watchdogs, report progress, and checkpoint."""
+    """Jitted bounded-step chunk; the host loops over chunks to bound
+    each device execution, report progress, and checkpoint."""
     return _run_steps_impl(scene, source, grid, key, carry, cfg, n_steps,
                            nphotons)
 

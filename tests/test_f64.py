@@ -2,7 +2,7 @@
 
 The reference transports in f64 with eps = 1e-8
 (reference: src/constants.f90:18, src/inttau2.f90:56); this framework
-defaults to f32 + eps = 1e-5 on TPU.  The f64 mode must run the physics
+defaults to f32 + eps = 1e-5.  The f64 mode must run the physics
 gates end-to-end (including Fresnel chaining at the reference eps) and
 agree with the f32 engine -- bounding the f32 error.  Runs in a
 subprocess because ``jax_enable_x64`` is process-global."""

@@ -6,12 +6,12 @@ bench.py build their TransportConfig from the same
 recording, and the ADVICE r3 s_prev-overwrite fix is regression-gated.
 """
 
-import inspect
 import pathlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rsmcrt_tpu.grid import cart_grid
 from rsmcrt_tpu.optics.properties import mono
@@ -80,19 +80,43 @@ def test_chain_respawn_grid_exit_media_beyond_grid():
     assert np.abs(pa - pb).sum() / pa.sum() < 0.1
 
 
-def test_bench_and_product_share_fast_path_config():
-    """kernels.run_MCRT and bench.py must build their transport config
-    from the same fast_path_defaults(), so the benchmarked program IS the
-    product program (VERDICT r3 #2 acceptance)."""
+class _Captured(Exception):
+    pass
+
+
+def test_bench_and_product_share_fast_path_config(monkeypatch):
+    """kernels.run_MCRT and bench.py must build the same transport config
+    and simulate arguments from the device row, so the benchmarked
+    program IS the product program (VERDICT r3 #2 acceptance)."""
+    import bench
     from rsmcrt_tpu import kernels
 
     fp = kernels.fast_path_defaults()
     assert fp["chain_scatter"] is True
     assert fp["dda_substeps"] >= 8
-    assert "**fast_path_defaults()" in inspect.getsource(kernels.run_MCRT)
-    bench_src = (pathlib.Path(kernels.__file__).parents[1]
-                 / "bench.py").read_text()
-    assert bench_src.count("fast_path_defaults()") >= 2  # main + sharded
+
+    seen = {}
+
+    def capture(scene, source, grid, key, cfg, **kw):
+        seen["cfg"] = cfg
+        seen["kw"] = {k: kw[k] for k in ("chunk_steps", "min_lanes")}
+        raise _Captured
+
+    monkeypatch.setattr(kernels, "simulate", capture)
+    toml = pathlib.Path(__file__).parents[1] / "res" / "sphere.toml"
+    parsed, scene = kernels.setup(toml)
+    n = 4000
+    with pytest.raises(_Captured):
+        kernels.run_MCRT(parsed, scene, nphotons=n)
+
+    cfg, kw = bench.bench_config(fluence=True, nphotons=n)
+    assert cfg == seen["cfg"]
+    assert kw == seen["kw"]
+    # the fluenceless cell takes the same fast-path knobs as a
+    # fluenceless product run
+    cfg_nf, _ = bench.bench_config(fluence=False, nphotons=n)
+    fp_nf = kernels.fast_path_defaults(fluence=False)
+    assert {k: getattr(cfg_nf, k) for k in fp_nf} == fp_nf
 
 
 def test_run_MCRT_engages_chaining():

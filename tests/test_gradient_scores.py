@@ -6,7 +6,7 @@ The pMC sufficient statistics carry two new per-photon scores:
   the PARTIAL derivative at fixed propagation directions.  Exact as
   incidence -> normal (the angular reparameterization term -- interior
   Snell angles depend on n -- vanishes as O(theta^2); at 40 deg it
-  measures -7.8% on this slab, recorded in STATUS.md).  Validated here
+  measures -7.8% on this slab).  Validated here
   at 2 deg against the closed-form slab transmission T = (1-R)/(1+R).
 - ``pmc_bn``: boundary extinction score d log p / dR (kappa jump per
   surface crossing / reflection).  Exact when mus and n are continuous

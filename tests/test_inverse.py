@@ -71,7 +71,7 @@ def test_pmc_gradient_signs_and_magnitudes():
 @pytest.mark.slow
 def test_pmc_gradient_mua_tight_vs_seed_averaged_fd():
     """pMC dT/dmua vs a CRN central difference averaged over seeds.
-    CPU-budget gate: 12%; the TPU tool (tools/validate_gradients.py) runs
+    CPU-budget gate: 12%; tools/validate_gradients.py runs
     the same comparison at >= 5e5 photons x 6+ seeds where the pMC score
     agrees with FD to ~1e-2 (documented path to 1e-3: more seeds, since
     the residual is the FD's own Monte Carlo error)."""
@@ -97,7 +97,7 @@ def test_n_gradient_sign_and_consistency():
     """The CRN n-derivative: a higher sphere index increases internal
     reflection, reducing the transmission detector total (negative
     gradient); two step sizes with different seeds must agree in sign."""
-    # CRN noise scales ~1/(h sqrt(N)): at the TPU-measured gradient
+    # CRN noise scales ~1/(h sqrt(N)): at the high-statistics gradient
     # (~ -3.4e-3/photon) the sign needs N h^2 large enough for >3 sigma.
     # n_method="fd" explicitly: this config sits AT the matched index
     # n=1.0, where the true derivative is a quadratic minimum (score = 0

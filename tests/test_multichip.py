@@ -204,7 +204,7 @@ def test_weak_scaling_structure():
     serialises, so the ideal T(8)/T(2) is 4x and any super-linear excess
     is sharded-driver overhead.  Gate at 7x (1.75x tolerance for CPU
     noise); the un-confounded protocol + fitted overhead table lives in
-    tools/profile_mesh_scaling.py / STATUS.md."""
+    tools/profile_mesh_scaling.py."""
     import time
 
     from jax.sharding import Mesh

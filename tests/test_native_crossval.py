@@ -15,8 +15,12 @@ from rsmcrt_tpu.sources.sources import build_source
 from rsmcrt_tpu.tally import as_volume
 from rsmcrt_tpu.transport.engine import TransportConfig, simulate
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native library unavailable")
+@pytest.fixture(autouse=True)
+def _native_library():
+    """Builds the native engine at first use; skips where no C++
+    compiler can."""
+    if not native.available():
+        pytest.skip("native library could not be built")
 
 
 @pytest.mark.slow

@@ -33,7 +33,7 @@ def test_bench_scene_step_budget():
     p = np.asarray(tallies.perf) / int(launched)
     deposits, alive_steps, analyses, interactions = p
     # measured on this scene: ~307 deposits, ~32 alive-steps, 22 analyses,
-    # 17 interactions per photon (see STATUS.md); generous margins
+    # 17 interactions per photon; generous margins
     assert alive_steps < 50, f"steps/photon regressed: {alive_steps:.1f}"
     assert analyses < 30, f"analyses/photon regressed: {analyses:.1f}"
     assert deposits / (alive_steps * K) > 0.45, (

@@ -13,7 +13,7 @@ oversubscribed host, per-device compute serialises onto the cores, so
 with b = per-device compute (including any serialisation) and a = the
 mesh-size-independent dispatch/driver overhead.  The sharded-driver
 overhead fraction a / T(n) is the quantity the virtual mesh CAN measure;
-ICI collective cost cannot be observed on a virtual mesh and is excluded
+collective cost cannot be observed on a virtual mesh and is excluded
 by construction (the chunk loop contains no collectives -- tallies
 reduce once at the end).
 

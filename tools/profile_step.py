@@ -1,7 +1,7 @@
 """Ablation timing of the transport megastep on the bench sphere scene.
 
 Times N fixed megasteps (fori_loop, no early exit) for the full step and
-for isolated pieces, to locate where per-step time goes on the TPU.
+for isolated pieces, to locate where per-step time goes on the device.
 """
 
 from __future__ import annotations

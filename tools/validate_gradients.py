@@ -1,4 +1,4 @@
-"""High-statistics gradient validation vs finite differences (TPU).
+"""High-statistics gradient validation vs finite differences.
 
 BASELINE.md asks gradients (mus, mua, g, n, SDF params) to match finite
 differences.  The pMC scores (mus, mua, g) are likelihood-ratio
